@@ -11,7 +11,7 @@ real sparse solver works. This one:
   - forms the off-diagonal Schur mass over within-track pairs (exactly what
     CSparse/Ceres walk per marginalized landmark),
   - runs the FULL LM loop (linearize, solve, retract, gain-ratio control —
-    same Nielsen law as the TPU solver) for >= 5 iterations,
+    same Nielsen law as the device solver) for >= 5 iterations,
   - reports per-iteration time with run-to-run variance.
 
 Keep BLAS out of the hot path (einsum on small trailing dims uses numpy's
@@ -88,7 +88,7 @@ def _cost(R, t, points, cam_idx, lm_idx, uv, weight):
 
 def run_baseline_lm(poses_R, poses_t, points, cam_idx, lm_idx, uv, weight,
                     fixed_mask, *, max_iters=5, lambda_init=1e-4):
-    """Full single-core Schur LM (same control law as the TPU solver).
+    """Full single-core Schur LM (same control law as the device solver).
     Returns (final_cost, iters_done, elapsed_seconds)."""
     R = poses_R.copy()
     t = poses_t.copy()
@@ -157,7 +157,7 @@ def run_baseline_lm(poses_R, poses_t, points, cam_idx, lm_idx, uv, weight,
         np.add.at(tl, lm_idx, np.einsum("nij,ni->nj", W, dp[cam_idx]))
         dl = np.einsum("lij,lj->li", Hll_inv, -gl - tl)
 
-        # trial + Nielsen gain-ratio control (identical law to the TPU solver)
+        # trial + Nielsen gain-ratio control (identical law to the device solver)
         R_try = R @ _so3_exp(dp[:, :3])
         t_try = t + dp[:, 3:]
         pts_try = pts + dl

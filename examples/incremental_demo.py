@@ -5,8 +5,8 @@ super-block factor over the affected tail instead of refactoring the whole
 history, then takes tail-restricted GN steps. A periodic batch rebatch
 polishes the estimate.
 
-Run: python examples/incremental_demo.py [--tpu]
-(defaults to the CPU backend so the demo runs anywhere; --tpu uses the
+Run: python examples/incremental_demo.py [--device]
+(defaults to the CPU backend so the demo runs anywhere; --device uses the
 default device)."""
 
 import sys
@@ -15,7 +15,7 @@ import sys
 def main():
     import jax
 
-    if "--tpu" not in sys.argv:
+    if "--device" not in sys.argv:
         jax.config.update("jax_platforms", "cpu")
         jax.config.update("jax_enable_x64", True)
     jax.config.update("jax_default_matmul_precision", "highest")
@@ -28,7 +28,7 @@ def main():
     from slam_tricks_tpu.utils.logging import get_logger
 
     log = get_logger("incremental_demo")
-    dtype = np.float32 if "--tpu" in sys.argv else np.float64
+    dtype = np.float32 if "--device" in sys.argv else np.float64
 
     C, L = 64, 960
     scene = make_trajectory_scene(n_cams=C, n_points=L, track_len=4,

@@ -27,7 +27,7 @@ def main():
     from slam_tricks_tpu.residuals import reprojection
     from slam_tricks_tpu.solvers import gauss_newton, levenberg_marquardt
     from slam_tricks_tpu.solvers.pnp import solve_pnp, solve_pnp_batched
-    from slam_tricks_tpu.utils import get_logger, time_fn
+    from slam_tricks_tpu.utils import get_logger, time_median
 
     log = get_logger("pnp_demo")
     dtype = np.float64 if args.cpu else np.float32
@@ -44,19 +44,19 @@ def main():
     # 1) autodiff LM with SE(3) exp parameterization (DynamicAutoDiff analog)
     f1 = jax.jit(lambda T: levenberg_marquardt(
         pnp_res, T, lie(se3), args=(pts, uv), max_iters=40))
-    dt, r1 = time_fn(f1, T0)
+    dt, _, r1 = time_median(f1, T0)
     log.info("LM + jacfwd + SE3 exp:      %.4f ms  cost %.3e  iters %d",
              dt * 1e3, float(r1.cost), int(r1.iterations))
 
     # 2) autodiff GN with SO3(+)R3 (g2o-vertex parameterization)
     f2 = jax.jit(lambda T: gauss_newton(
         pnp_res, T, so3_r3(), args=(pts, uv), iters=10))
-    dt, r2 = time_fn(f2, T0)
+    dt, _, r2 = time_median(f2, T0)
     log.info("GN + jacfwd + SO3+R3:       %.4f ms  cost %.3e", dt * 1e3, float(r2.cost))
 
     # 3) analytic-Jacobian GN (SelfGaussNewton analog — reference: 0.0192 ms)
     f3 = jax.jit(lambda T: solve_pnp(T0, pts, uv, iters=10))
-    dt, r3 = time_fn(f3, T0)
+    dt, _, r3 = time_median(f3, T0)
     log.info("GN analytic J:              %.4f ms  cost %.3e", dt * 1e3, float(r3.cost))
 
     # 4) 8192 problems batched (what no single-core solver can do)
@@ -67,7 +67,7 @@ def main():
     uvb = pcb[..., :2] / pcb[..., 2:]
     T0b = jax.vmap(se3.retract)(Tt, jnp.asarray((rng.normal(size=(B, 6)) * 0.05).astype(dtype)))
     f4 = jax.jit(solve_pnp_batched)
-    dt, r4 = time_fn(f4, T0b, ptsb, uvb)
+    dt, _, r4 = time_median(f4, T0b, ptsb, uvb)
     log.info("batched x%d analytic GN:  %.1f ms total -> %.4f ms/solve, max cost %.2e",
              B, dt * 1e3, dt / B * 1e3, float(jnp.max(r4.cost)))
 

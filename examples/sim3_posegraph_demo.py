@@ -7,8 +7,8 @@ optimization recovers the metric trajectory AND the latent per-keyframe
 scale profile — which SE(3) optimization on the identical graph
 structurally cannot (Strasdat et al., RSS 2010).
 
-Run: python examples/sim3_posegraph_demo.py [--tpu]
-(defaults to the CPU backend so the demo runs anywhere; --tpu uses the
+Run: python examples/sim3_posegraph_demo.py [--device]
+(defaults to the CPU backend so the demo runs anywhere; --device uses the
 default device)."""
 
 import sys
@@ -17,7 +17,7 @@ import sys
 def main():
     import jax
 
-    if "--tpu" not in sys.argv:
+    if "--device" not in sys.argv:
         jax.config.update("jax_platforms", "cpu")
         jax.config.update("jax_enable_x64", True)
     jax.config.update("jax_default_matmul_precision", "highest")
@@ -30,7 +30,7 @@ def main():
     from slam_tricks_tpu.utils.logging import get_logger
 
     log = get_logger("sim3_demo")
-    dtype = np.float32 if "--tpu" in sys.argv else np.float64
+    dtype = np.float32 if "--device" in sys.argv else np.float64
 
     # ---- simulate a mono keyframe loop with scale drift -------------------
     N, n_loops, ds = 96, 6, 0.004

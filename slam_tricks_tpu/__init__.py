@@ -1,4 +1,4 @@
-"""slam_tricks_tpu — a TPU-native sparse nonlinear least-squares / SLAM framework.
+"""slam_tricks_tpu — a sparse nonlinear least-squares / SLAM framework.
 
 Built from scratch in JAX/XLA/Pallas, covering the SLAM problem classes of the
 reference catalog `Unsigned-Long/slam-tricks` (see SURVEY.md):
@@ -17,7 +17,7 @@ reference catalog `Unsigned-Long/slam-tricks` (see SURVEY.md):
 - ``utils``           logging, timing, config
 
 Everything on the compute path is pure-functional JAX: static shapes,
-`lax`-control-flow, vmap/shard_map-friendly, f32 (TPU) and f64 (CPU verification)
+`lax`-control-flow, vmap/shard_map-friendly, f32 (accelerator) and f64 (CPU verification)
 capable.
 """
 

@@ -18,7 +18,7 @@ with first-order bias Jacobians (d*/dbg, d*/dba) and a 9x9 tangent
 covariance ([phi, v, p] ordering) propagated alongside in ONE `lax.scan`
 — the whole segment integrates in a single compiled program and batches
 over segments with `jax.vmap` (static samples-per-segment), which is the
-TPU-native shape: K segments x S samples integrate as one (K,S) scan.
+Device shape: K segments x S samples integrate as one (K,S) scan.
 
 Conventions:
 - IMU measures w_meas = w_body + bg + n_g, a_meas = R^T (a_world - g) + ba + n_a

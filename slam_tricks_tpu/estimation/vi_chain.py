@@ -9,7 +9,7 @@ graph's chain structure exactly:
     state Hessian is SPD block-TRIDIAGONAL with 9-dim blocks
     ([omega, dt, dv] tangent per keyframe) — solved by the same batched
     cyclic reduction that powers the banded BA path
-    (solvers/banded_flat.block_tridiag_solve, log-depth, MXU-batched);
+    (solvers/banded_flat.block_tridiag_solve, log-depth, batched matmuls);
   - the shared bias couples to every state (an arrow/bordered system);
     it is eliminated by a 6-dim Schur complement: one multi-RHS tridiag
     solve of [g | U] (7 columns) per iteration, then a 6x6 solve.

@@ -10,7 +10,7 @@ manifold  (SO(3)+R^3)^K  x  R^{3K} (velocities)  x  R^6 (shared biases).
 
 All K-1 IMU segments integrate as ONE vmapped scan (static samples/segment)
 and all factors evaluate as one vmapped residual stack — no per-factor
-Python, the TPU-native shape for a smoother of this size. For long
+Python, the device-friendly shape for a smoother of this size. For long
 trajectories the same factors drop into the banded/incremental chain
 solvers; this module is the reference dense formulation the chain path is
 parity-tested against.

@@ -1,4 +1,4 @@
-"""Chessboard corner detection — TPU-native re-design of the reference's
+"""Chessboard corner detection — accelerator re-design of the reference's
 largest component (st10-chessCorner, paper "Automatic Camera and Range Sensor
 Calibration using a single Shot").
 
@@ -14,7 +14,7 @@ Pipeline mapping (reference detector.cpp:11-110):
  4. subpixel refinement: GN on gradient orthogonality (refineCorners :381-400)
                                           -> `refine_corners_subpixel` (vmapped
     closed-form 2x2 solve of the structure-tensor normal equations)
- 5. chessboard growth (:469-824): greedy sequential search — a poor TPU fit by
+ 5. chessboard growth (:469-824): greedy sequential search — a poor accelerator fit by
     design; provided as a host-side numpy routine `grow_chessboards`.
 
 All device-side stages are static-shape and batched over a fixed candidate
@@ -465,7 +465,7 @@ def grow_chessboards(xy, angles, scores, max_boards=4, dist_factor=1.6,
 
     Returns a list of (rows, cols) index grids into `xy`, best energy first.
     Sequential pointer-chasing is a deliberate host-side step (SURVEY §7 step
-    10: poor TPU fit); the heavy stages 1-4 stay on device."""
+    10: poor accelerator fit); the heavy stages 1-4 stay on device."""
     xy = np.asarray(xy)
     scores = np.asarray(scores)
     idxs = np.nonzero(np.isfinite(scores))[0]

@@ -1,4 +1,4 @@
-"""Pyramidal Lucas-Kanade optical flow — the st5 tracker re-designed for TPU.
+"""Pyramidal Lucas-Kanade optical flow — the st5 tracker re-designed for an accelerator.
 
 Reference: st5-opticalflow/src/include/opticalflow.hpp wraps
 cv::calcOpticalFlowPyrLK (:64) around grid-based seeding/replenishment

@@ -1,21 +1,21 @@
-"""ORB-style features, TPU-native: FAST-9 detection (vectorized over the
+"""ORB-style features, accelerator-native: FAST-9 detection (vectorized over the
 whole image), Harris ranking, intensity-centroid orientation, and rotated
-binary-test descriptors matched by one MXU matmul.
+binary-test descriptors matched by one matmul.
 
 Closes the last SURVEY §2 inventory gap (reference ORB `detectAndMatch`,
 st0-core/include/struct_def.hpp:113-134, used by st11 panorama). Design is
-TPU-first rather than a port of OpenCV's ORB:
+Accelerator-first rather than a port of OpenCV's ORB:
 
   - FAST-9: the 16 Bresenham-circle comparisons are 16 static image shifts
     + elementwise masks; the "9 contiguous" test is 16 windowed AND-products
-    — all (H, W) VPU ops, zero data-dependent control flow.
+    — all (H, W) elementwise ops, zero data-dependent control flow.
   - Ranking: Harris response at FAST corners (what ORB does), via convs.
   - Orientation: intensity-centroid moments m10/m01 computed for EVERY
     pixel with two small convolutions, gathered at keypoints.
   - Descriptor: 256 coordinate-pair intensity tests (a deterministic
     Gaussian pattern, the original BRIEF recipe) on the blurred image,
     steered by the keypoint angle; emitted as +-1/16 unit vectors so that
-    all-pairs matching is ONE (N1,256)x(256,N2) MXU matmul with
+    all-pairs matching is ONE (N1,256)x(256,N2) matmul with
     hamming = 128 * (1 - sim).
 """
 
@@ -143,7 +143,7 @@ def orb_detect(img, *, n=256, fast_thresh=0.04, nms_radius=4):
 
 def orb_match(f1: OrbFeatures, f2: OrbFeatures, *, ratio=0.9,
               max_hamming=64):
-    """Mutual-best + Lowe-ratio Hamming matching via one MXU matmul
+    """Mutual-best + Lowe-ratio Hamming matching via one matmul
     (hamming = 128 * (1 - <d1, d2>) for the +-1/16 encoding).
     Returns (idx2 (N1,), ok (N1,))."""
     sim = jnp.einsum("ik,jk->ij", f1.desc, f2.desc, precision=HIGHEST)

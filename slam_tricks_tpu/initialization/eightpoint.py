@@ -18,9 +18,8 @@ from slam_tricks_tpu.solvers.common import HIGHEST
 
 def nullvec_normal(A):
     """Smallest right-singular vector of A (N, m) via eigh of the m x m
-    normal matrix G = A^T A — one MXU matmul + a tiny symmetric
-    eigensolve instead of a tall SVD (an (N,9) SVD costs ~30 ms on TPU;
-    this path is ~100x cheaper). Squaring the condition number costs
+    normal matrix G = A^T A — one matmul + a tiny symmetric eigensolve
+    instead of a tall (N,9) SVD. Squaring the condition number costs
     ~half the digits, which is immaterial for an INITIALIZATION feeding a
     refinement. Returns (v (m,), singular values (m,) descending)."""
     G = jax.lax.dot_general(A, A, (((0,), (0,)), ((), ())),
@@ -118,8 +117,8 @@ def triangulate_midpoint(R, t, p1, p2):
     point); the point is the midpoint of the two ray feet. Same semantics
     as the reference's hat-constraint DLT (st2 triangulation.hpp:21-76,
     st22 two_view_geometry.cpp:103-126) and exact on consistent rays, but
-    without the per-point 4x4 null-space eigensolve — batched tiny eigh
-    was the two-view pipeline's TPU hot spot (22.4 of 22.6 ms at N=2000).
+    without the per-point 4x4 null-space eigensolve (a batch of tiny eighs
+    was the two-view pipeline's hot spot).
     Near-parallel rays (singular 2x2 system) return finite X with
     d1 = d2 = -1 so they FAIL the cheirality depth gates instead of
     poisoning downstream math with inf/NaN.

@@ -3,7 +3,7 @@
 Reference semantics: vanilla RANSAC (st7-ransac/src/include/parabola.hpp:132-153)
 and the generic template framework with mean-shift refinement
 (st12-ransaplus/src/include/ransac.hpp:18-247 — sample -> fit -> inlier gate ->
-refit -> keep best). TPU-first re-design: the hypothesis loop IS a vmap —
+refit -> keep best). Accelerator-first re-design: the hypothesis loop IS a vmap —
 `n_hyps` minimal fits + residual evaluations run as one batched kernel; the
 best hypothesis is an argmax reduce; the final refit uses the inlier mask as
 weights (static shapes throughout — no dynamic compaction).

@@ -5,7 +5,7 @@ Reference semantics covered (st2-epipolar/src/include/epipolar.hpp:139-209):
 the iterative chi-square outlier-rejection loop around the 8-point solve, with
 per-octave sigma^2 weighting (:56-62). The reference's drop-the-single-worst
 strategy breaks under high-leverage outliers (squared loss lets them own the
-fit), so the TPU build initializes with a batched RANSAC over minimal 8-point
+fit), so this build initializes with a batched RANSAC over minimal 8-point
 fits (one vmapped computation — st7/st12 machinery) and polishes with
 Cauchy-weighted IRLS; the final classification is exactly the chi-square gate.
 """

@@ -15,7 +15,7 @@ generator extension (tangent [rho, omega, sigma], right-perturbation
 retraction matching the SE(3) convention of
 st17-ceres/src/include/solver.hpp:442-443).
 
-TPU-first numerics: exp/log need W(omega, sigma) = integral_0^1 e^{s sigma}
+Accelerator-first numerics: exp/log need W(omega, sigma) = integral_0^1 e^{s sigma}
 exp(s hat(omega)) ds. The closed form (Sophus-style) needs FOUR Taylor
 regimes whose cancellation thresholds are dtype-dependent (the round-5
 pose-graph work measured exactly this class of f32 failure in the SE(3)

@@ -1,7 +1,7 @@
 """SO(3) — rotation group, represented as 3x3 rotation matrices.
 
-TPU-first design: the matrix representation makes `compose` and `act` plain
-(batched) matmuls, which XLA vectorizes onto the VPU/MXU; `exp` is Rodrigues,
+Accelerator-first design: the matrix representation makes `compose` and `act` plain
+(batched) matmuls, which XLA vectorizes onto vector units and matmuls; `exp` is Rodrigues,
 `log` goes through a branch-free quaternion extraction (Shepperd's method via
 `jnp.where` selects) so it is robust for all angles including theta ~ pi.
 
@@ -12,7 +12,7 @@ Jacobians). The right-perturbation retraction `R @ exp(w)` matches the reference
 solvers' update convention (st17-ceres/src/include/solver.hpp:43,442).
 
 All functions operate on single elements; batch with `jax.vmap`.
-Dtype-polymorphic: f32 on TPU, f64 for CPU verification.
+Dtype-polymorphic: f32 on the accelerator, f64 for CPU verification.
 """
 
 import jax

@@ -17,15 +17,27 @@ import numpy as np
 _NATIVE_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                            "native")
 _LIB_PATH = os.path.join(_NATIVE_DIR, "libslam_native.so")
+_SOURCES = ("slam_native.cpp", "schur_baseline.cpp", "Makefile")
 _lib = None
 _build_failed = False
+
+
+def _stale():
+    """True when the library is missing or older than a source it is built
+    from (Makefile included), so a copied checkout never loads a binary
+    built from other sources or flags."""
+    if not os.path.exists(_LIB_PATH):
+        return True
+    built = os.path.getmtime(_LIB_PATH)
+    return any(os.path.getmtime(os.path.join(_NATIVE_DIR, f)) > built
+               for f in _SOURCES)
 
 
 def _load():
     global _lib, _build_failed
     if _lib is not None or _build_failed:
         return _lib
-    if not os.path.exists(_LIB_PATH):
+    if _stale():
         try:
             subprocess.run(["make", "-C", _NATIVE_DIR], check=True,
                            capture_output=True, timeout=120)

@@ -2,7 +2,7 @@
 
 Reference: st8-nms/src/include/nms.hpp — strided-block 1D NMS (:10-38) and 2D
 block NMS with neighborhood verification (:40-81), both scalar loops there.
-TPU-native: reduce_window max-pooling + equality mask — branch-free, fuses.
+Accelerator-native: reduce_window max-pooling + equality mask — branch-free, fuses.
 """
 
 import jax

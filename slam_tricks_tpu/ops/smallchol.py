@@ -3,7 +3,7 @@
 `jax.scipy.linalg.cho_factor` lowers to a generic blocked routine that is slow
 when vmapped over thousands of tiny (3x3..12x12) systems — the batched-PnP hot
 path. Unrolling the factorization at trace time turns it into ~n^3/3 scalar
-ops that broadcast over the batch on the VPU (the same shape a hand-written
+ops that broadcast over the batch as elementwise work (the same shape a hand-written
 Pallas kernel would take; XLA fuses this whole solve into the surrounding
 computation).
 """
@@ -33,7 +33,7 @@ def cholesky_small(A):
 
 def solve_lower_small(L, B):
     """Solve L X = B with L (..., n, n) lower-triangular and B (..., n, k),
-    unrolled for static n (broadcasts over batch dims on the VPU)."""
+    unrolled for static n (broadcasts over batch dims elementwise)."""
     n = L.shape[-1]
     x = [None] * n
     for i in range(n):

@@ -17,8 +17,9 @@ from jax.sharding import Mesh
 
 def initialize_multihost(coordinator_address=None, num_processes=None,
                          process_id=None):
-    """Thin wrapper over jax.distributed.initialize (env-driven when args are
-    None — the TPU pod auto-config path)."""
+    """Thin wrapper over jax.distributed.initialize. With no arguments JAX
+    auto-detects a cluster environment (e.g. Slurm); a host with none needs
+    all three arguments (coordinator_address as "host:port")."""
     kwargs = {}
     if coordinator_address is not None:
         kwargs.update(coordinator_address=coordinator_address,

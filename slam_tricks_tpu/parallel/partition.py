@@ -1,5 +1,5 @@
 """Host-side observation partitioning for distributed BA (SURVEY §2.2 items
-1-2). The TPU-native distribution unit is the LANDMARK TRACK: all observations
+1-2). The distribution unit is the LANDMARK TRACK: all observations
 of a landmark are placed on one device, so landmark elimination and the
 within-track pair products that form the off-diagonal Schur mass are
 shard-local, and the only O(>C) cross-device reduction is the psum of the

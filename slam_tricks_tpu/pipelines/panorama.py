@@ -5,8 +5,8 @@ Reference flow (st11-panorama/src/src/panorama.cpp:19-153): ORB matches ->
 top-100 selection -> per-pair homography (DLT + RANSAC, projective.cpp:59-105)
 -> chaining :106-118 -> bias + warpPerspective composition :120-152.
 
-TPU-native substitutions: Harris-style corners (conv), normalized-cross-
-correlation patch descriptors + all-pairs matching (one matmul on the MXU),
+Accelerator-native substitutions: Harris-style corners (conv), normalized-cross-
+correlation patch descriptors + all-pairs matching (one matmul),
 the framework's vmapped-RANSAC homography, and gather-based inverse warping.
 """
 

@@ -6,7 +6,7 @@ The BASELINE "st22 two-view" config, mirroring the reference flow
 all-pairs cheirality -> DLT triangulation -> (no refinement in reference; we
 add the joint bundle refinement the reference leaves to st20)).
 
-TPU-native: the whole pipeline is one jittable function; triangulation and
+Accelerator-native: the whole pipeline is one jittable function; triangulation and
 refinement are the vmapped/Schur machinery of the solver layer.
 """
 

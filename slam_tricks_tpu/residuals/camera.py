@@ -106,7 +106,7 @@ def undistort_point_gn(intr, dist, px_dist, iters=5, full_jacobian=True):
     Reference algorithm (st1-undistort/src/include/undistort_pt.hpp:29-88): <=5
     Newton iterations on normalized coordinates using only the diagonal Jacobian
     terms Juu/Jvv. With ``full_jacobian=True`` we use the exact 2x2 Jacobian
-    (via jacfwd — XLA fuses it into the same kernel), which is what lets the TPU
+    (via jacfwd — XLA fuses it into the same kernel), which is what lets the device
     build beat the reference in accuracy at equal iteration count.
 
     Fixed iteration count => static shapes => perfectly vmappable over pixels.
@@ -137,8 +137,8 @@ def _distort_and_jacobian(dist, u, v):
     """Forward model + analytic 2x2 Jacobian, fully batched over (N,) arrays.
 
     Hand-derived closed form (generalizing the reference's diagonal Juu/Jvv
-    terms at undistort_pt.hpp:52-58 to the full 2x2) — pure VPU arithmetic,
-    no linalg, no autodiff: this is the speed-of-light kernel shape for TPU.
+    terms at undistort_pt.hpp:52-58 to the full 2x2) — pure elementwise arithmetic,
+    no linalg, no autodiff: this is one fused elementwise kernel.
     """
     k1, k2, k3, p1, p2 = dist.k1, dist.k2, dist.k3, dist.p1, dist.p2
     r2 = u * u + v * v

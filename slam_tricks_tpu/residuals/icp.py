@@ -5,9 +5,9 @@ Reference problem class: st6-icp/src/include/icp.hpp —
 - unknown-correspondence variant with centroid normalization + NN association
   (icp.hpp:50-95)
 
-The TPU build generalizes to SE(3) (BASELINE config "st6 ICP: point-to-point
+This build generalizes to SE(3) (BASELINE config "st6 ICP: point-to-point
 SE(3) alignment") and replaces the linear-scan NN with a batched all-pairs
-argmin (XLA-friendly; O(N*M) flops on the VPU beats pointer-chasing kd-trees at
+argmin (XLA-friendly; O(N*M) elementwise flops beats pointer-chasing kd-trees at
 these sizes).
 """
 
@@ -40,7 +40,7 @@ def nearest_neighbors(src, dst):
 def umeyama(src, dst, with_scale=False):
     """Closed-form least-squares alignment dst ~ s * R @ src + t (Umeyama/Kabsch).
 
-    The TPU-native replacement for the reference's centroid-normalized SO(2)
+    The accelerator-native replacement for the reference's centroid-normalized SO(2)
     closed-form translation step (icp.hpp:50-61), generalized to N-D; also the
     exact solver the unknown-correspondence ICP alternates with.
     Returns (R, t, s).

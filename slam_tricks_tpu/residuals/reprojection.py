@@ -65,7 +65,7 @@ def reproject_normalized_jacobians(T_cw, p_world):
     validated against jacfwd in tests/test_residuals.py).
     """
     R, t = T_cw.R, T_cw.t
-    hp = jax.lax.Precision.HIGHEST  # MXU default precision stalls GN convergence
+    hp = jax.lax.Precision.HIGHEST  # reduced-precision matmul passes stall GN convergence
     mm = lambda a, b: jnp.matmul(a, b, precision=hp)
     p_cam = mm(R, p_world) + t
     head = _dproj_dpcam(p_cam)  # (2,3)

@@ -2,7 +2,7 @@
 
 The reference relies on Ceres' built-in losses plus explicit RANSAC/chi-square
 gating (st2-epipolar/src/include/epipolar.hpp:139-209, st7/st12 RANSAC). The
-TPU framework applies robustness inside the (vmapped) solver via the standard
+framework applies robustness inside the (vmapped) solver via the standard
 triggs-corrected rescaling: given squared residual norm s = ||r||^2, a loss
 rho(s) contributes weight sqrt(rho'(s)) on the residual/Jacobian — static-shape
 and branch-free (jnp.where), so it fuses into the normal-equation build.

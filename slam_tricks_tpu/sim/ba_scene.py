@@ -6,7 +6,7 @@ on its walls (:22-45), a spiral look-at-origin camera trajectory inside
 (:47-96), a visibility-culled measurement graph (:119-172), and noisy
 initialization with gauge fixing (:244-296).
 
-TPU-first change: instead of a ragged per-landmark track list the measurement
+Accelerator-first change: instead of a ragged per-landmark track list the measurement
 graph is the FULL dense (cams x landmarks) candidate set with a visibility
 mask — static shapes, no compaction gathers inside jit. A host-side
 `compact()` produces index arrays (cam_idx, lm_idx, uv, weight) padded to a

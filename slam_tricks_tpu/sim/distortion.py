@@ -5,7 +5,7 @@ Reference: st19-distortion — rolling-shutter scan loop (rolling_shut.h:44-66:
 the image is exposed row-by-row while objects move) and the 1-degree-per-step
 LiDAR with segment intersection (lidar.h:63-106, LineIntersection :152-182).
 
-TPU-native: both are closed-form/batched instead of stepped loops —
+Accelerator-native: both are closed-form/batched instead of stepped loops —
 - rolling shutter: solve the scanline-meets-moving-point equation per point
   (one fused elementwise pass over all points)
 - LiDAR: all (beam x segment) intersections as one broadcast computation,

@@ -1,11 +1,10 @@
 """Slot-major banded-direct BA — the large-C trajectory solver with ZERO
 large gathers (round-3 redesign of the C >= 1024 path).
 
-Round-3 on-chip profiling of the gather-table PCG path at C=1024/N=1.6M
-showed every reduction bound by random-gather latency: a TPU gather costs
-~10-20 ns per accessed row REGARDLESS of row width, so any (N,)-scale
-gather-based reduction costs 15-30 ms and one S-matvec cost 40-80 ms (50 CG
-iterations -> 2-4 s per LM step; the dense comparator was faster).
+Profiling of the gather-table PCG path at C=1024/N=1.6M showed every
+reduction bound by random-gather latency: each (N,)-scale gather-based
+reduction, and every S-matvec of the 50 CG iterations per LM step, paid
+per-row gather cost regardless of row width.
 
 This module exploits what the large-C problem actually IS: a TRAJECTORY.
 Each landmark is observed by a run of at most K consecutive cameras starting
@@ -21,7 +20,7 @@ consequences, both verified host-side by the builder:
      c0-group is a multiple of B, every reduction becomes
         landmark-side: running sums over the K slots      (no reduction op)
         camera-side:   contiguous (LB,B) chunk-sums  ->  one (C,LB)x(LB,n)
-                       one-hot MXU matmul  ->  a row-roll by k
+                       one-hot matmul  ->  a row-roll by k
      and every "gather" of camera state is the same one-hot matmul applied
      to rolled (C, ...) arrays. NO gather or scatter touches an O(N) array.
 
@@ -273,7 +272,7 @@ def block_tridiag_solve_cr(D, E, r):
     r may be (G, m) -- one rhs -- or (G, m, q) for a MULTI-RHS solve (the
     Woodbury loop-closure path solves S_sb^-1 [b | U] in one factorization
     sweep, solvers/loop_flat.py); matmul-shaped rhs updates keep the extra
-    q columns on the MXU."""
+    q columns as matmuls."""
     vec = r.ndim == 2
     R = r[..., None] if vec else r
     X = _block_tridiag_cr_multi(D, E, R)
@@ -393,14 +392,10 @@ def block_tridiag_solve_scan(D, E, r):
 
 
 def block_tridiag_solve(D, E, r, method="cr"):
-    """Dispatch: 'cr' (batched cyclic reduction — fastest, default),
-    'scan' (sequential block Cholesky + prefix substitutions), or 'pallas'
-    (the fused single-kernel solver of ops/pallas_tridiag)."""
+    """Dispatch: 'cr' (batched cyclic reduction, the default) or 'scan'
+    (sequential block Cholesky + prefix substitutions)."""
     if method == "cr":
         return block_tridiag_solve_cr(D, E, r)
-    if method == "pallas":
-        from slam_tricks_tpu.ops.pallas_tridiag import tridiag_solve
-        return tridiag_solve(D, E, r)
     return block_tridiag_solve_scan(D, E, r)
 
 

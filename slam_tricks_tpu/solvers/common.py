@@ -13,11 +13,11 @@ from typing import NamedTuple
 import jax
 import jax.numpy as jnp
 
-# TPU MXU matmuls default to reduced-precision passes; Gauss-Newton normal
-# equations amplify that error quadratically (cond(J)^2) and stall convergence
-# ~1e-2 short of the optimum. Every solver contraction therefore pins HIGHEST
-# precision — measured on-chip: f32 PnP cost 2e-6 -> 9e-15 and 40 -> 24 LM
-# iterations. Tiny matrices, so the cost is negligible.
+# Accelerator matmuls may default to reduced-precision passes (TF32 or bf16
+# on a GPU); Gauss-Newton normal equations amplify that error quadratically
+# (cond(J)^2) and stall convergence short of the optimum. Every solver
+# contraction therefore pins HIGHEST precision. Tiny matrices, so the cost
+# is negligible.
 HIGHEST = jax.lax.Precision.HIGHEST
 
 
@@ -60,7 +60,7 @@ def solve_damped_normal(H, g, lam, use_marquardt_scaling=True):
         D = jnp.eye(H.shape[0], dtype=dtype)
     A = H + lam * D
     if H.shape[0] <= 16:
-        # unrolled Cholesky: broadcasts over vmapped batches as pure VPU ops
+        # unrolled Cholesky: broadcasts over vmapped batches as pure elementwise ops
         # (generic cho_factor is ~10x slower when vmapped over tiny systems)
         from slam_tricks_tpu.ops.smallchol import cho_solve_small
         delta = cho_solve_small(A, -g)

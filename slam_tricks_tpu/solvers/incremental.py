@@ -3,7 +3,7 @@ iSAM/online-smoother role (reference: theory notes only, the marginalization
 discussion of st0-core/docs/notes.tex:66-74; g2o's online mode is the
 classical CPU counterpart).
 
-TPU-native streaming design:
+Streaming design:
 
   1. STATIC SHAPES: the full-horizon `BandedWork` is built ONCE; cameras
      "arrive" by flipping per-slot weights on (`active_weight`, a traced
@@ -27,10 +27,8 @@ factor is exact vs a from-scratch factorization, that the reuse stream
 equals a refactor-every-arrival stream, and that the streamed estimate
 rebatches to (measured: beats) the batch optimum.
 
-Measured on the v5e chip (profiling/profile_incremental_factor.py,
-slope-timed): at the C=1024 banded scale (G=86 super-blocks of m=72),
-a full factorization costs 1.33 ms; extending over a 4-super-block tail
-costs 0.021 ms — 63x less factorization latency per arrival.
+At the C=1024 banded scale (G=86 super-blocks of m=72) an arrival extends
+the factor over a 4-super-block tail instead of refactoring all 86.
 """
 
 from typing import NamedTuple

@@ -38,11 +38,8 @@ gather-free: LC camera state moves through (Mpad, pA) one-hot matmuls against
 the |A|-row support table; no O(N) or O(L) gathers anywhere.
 
 Cost per LM iteration ~ banded + O(C m^2 q) for q = min(3M, 6|A|) rhs
-columns + O(q^3): measured on the v5e chip at the bench loop scene
-(C=1024, 1543 LC landmarks, |A| = 23 support cameras, q = 144):
-20.7 ms/LM-iter = 1.16x the pure-banded trajectory iteration, vs 2539 ms
-for the dense comparator on the same scene and 4576 ms for the round-3
-PCG fallback this replaces (BENCH_r04).
+columns + O(q^3); at the bench loop scene (C=1024, 1543 LC landmarks,
+|A| = 23 support cameras) q = 144.
 
 Same LM semantics as schur_flat.solve_ba_flat / banded_flat.solve_ba_banded
 (damping, gauge, Nielsen control — parity-tested vs schur.solve_ba).

@@ -10,7 +10,7 @@ one S-matvec costs three segment operations over the observation arrays,
     y_c  = Hpp_d x_c - sum_{obs of c} W_obs u[lm(obs)]
 
 so memory is O(N * 18) for the per-observation W blocks — no dense (C,L)
-tensor — and every step is gather/scatter + VPU math. Preconditioner:
+tensor — and every step is gather/scatter + elementwise math. Preconditioner:
 block-Jacobi with the damped per-camera 6x6 blocks (unrolled Cholesky).
 """
 
@@ -93,9 +93,8 @@ def make_tridiag_precond(D, E):
     recurrences; expressed as maps (A_c, b_c) with A_c = -L_c^{-1} F_c they
     compose associatively, so each apply is log2(C) rounds of batched 6x6
     matmuls (jax.lax.associative_scan) instead of 2(C-1) sequential scan
-    steps. At C=1024 the sequential form cost ~100 ms per CG iteration on
-    TPU (the whole large-scale solve was preconditioner-latency-bound);
-    the prefix form is ~two orders of magnitude faster."""
+    steps: the sequential form's 2(C-1) dependent steps made the
+    large-scale solve preconditioner-latency-bound."""
 
     L0 = cholesky_small(D[0])
 

@@ -2,11 +2,10 @@
 large-C BA path (SURVEY §7 step 5 "PCG with block preconditioner for larger
 pose counts", VERDICT r1 item 4).
 
-At C ~ 1000+ the dense reduced system becomes the bottleneck, and every
-segment_sum in the original matrix-free path serializes on TPU (~100 ns/row),
-so matvecs were scatter-bound. Here EVERY reduction is a static table gather +
-masked sum (memory-speed) using index tables built host-side from the
-visibility structure:
+At C ~ 1000+ the dense reduced system becomes the bottleneck, and the
+original matrix-free path's matvecs were segment_sum (scatter) bound. Here
+EVERY reduction is a static table gather + masked sum using index tables
+built host-side from the visibility structure:
 
   - the landmark track table (L, K)  — obs of each landmark (schur.TrackTable,
     carried in schur_flat.FlatWork)

@@ -8,7 +8,7 @@ st20-g2o/src/include/test_g2o.h:94-135's role).
 Two solvers:
 
 - solve_pose_graph: dense (N,N,6,6) normal equations + Cholesky — exact and
-  MXU-friendly for graphs up to a few hundred poses (the reference-grade
+  matmul-friendly for graphs up to a few hundred poses (the reference-grade
   comparison path).
 - solve_pose_graph_chain: the 10k-100k-pose path. An odometry+loop-closure
   graph's Hessian is EXACTLY block-tridiagonal (chain edges couple i, i+1)
@@ -154,7 +154,7 @@ def solve_pose_graph(poses0, i_idx, j_idx, Z, sqrt_info=None, *, fixed_mask=None
 
 def _compose_chain(T0, m):
     """Absolute poses from relative increments: T_k = T0 m_1 ... m_k.
-    Log-depth associative scan (TPU-friendly; f32 drift over 10k composes is
+    Log-depth associative scan (accelerator-friendly; f32 drift over 10k composes is
     ~log2(N) ulps, measured < 1e-5 absolute on the bench circle).
     Returns stacked SE3 of length P+1 (including T0 at index 0)."""
     def op(a, b):
@@ -245,8 +245,8 @@ def solve_pose_graph_chain(poses0, work: ChainGraphWork, *, fixed_mask=None,
     1/eps32 near N ~ 500-600 (measured: f32 makes no progress at N >= 600
     while f64 solves N = 10k to the noise floor). Long chains are therefore
     AUTO-UPCAST to f64 internally when x64 is enabled — pose-graph state is
-    tiny (6N doubles), so the emulated-f64 cost on TPU is negligible next
-    to a BA solve. Pass f64 inputs (or enable x64) for N > 384."""
+    tiny (6N doubles), so the f64 cost is small next to a BA solve. Pass
+    f64 inputs (or enable x64) for N > 384."""
     N_ = poses0.t.shape[0]
     if (poses0.t.dtype == jnp.float32 and N_ > 384
             and jax.config.jax_enable_x64):
@@ -384,7 +384,7 @@ def solve_pose_graph_chain(poses0, work: ChainGraphWork, *, fixed_mask=None,
 
 def solve_pose_graph_relative(poses0, work: ChainGraphWork, *,
                               max_iters=50, lambda_init=1e-6, xtol=1e-12):
-    """TPU-NATIVE large-scale pose-graph LM in f32 (VERDICT r4 item 3).
+    """Large-scale pose-graph LM in f32.
 
     The absolute-state chain Hessian has condition ~N^3 (past 1/eps32 near
     N~600), which is why solve_pose_graph_chain needs f64. This solver
@@ -402,7 +402,7 @@ def solve_pose_graph_relative(poses0, work: ChainGraphWork, *,
         (6E,6E) SPD Gram capacitance (the loop_flat.py pattern: the
         PLUS-sign Woodbury I + Ut^T Ut is unconditionally SPD).
 
-    All compute is batched 6x6 algebra + two (6P, q) MXU matmuls + one
+    All compute is batched 6x6 algebra + two (6P, q) matmuls + one
     log-depth compose scan — no sequential chain anywhere. The gauge is
     T_0 = const (first pose fixed, the bench/test convention).
 

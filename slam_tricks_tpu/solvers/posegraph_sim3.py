@@ -15,7 +15,7 @@ theory docs (st21-lie/lie-group.tex, st23-lie-group-v2/doc.tex) stop at
 SE(3) — Sim(3) is the one-extra-generator extension implemented in
 manifolds/sim3.py.
 
-Dense normal equations + Cholesky: exact and MXU-friendly for graphs up to a
+Dense normal equations + Cholesky: exact and matmul-friendly for graphs up to a
 few hundred keyframes, which is precisely the mono essential-graph regime
 (loop closing runs over keyframes, not every frame). For 10k+ chains, the
 relative-state/Woodbury machinery of solvers/posegraph.py applies unchanged

@@ -3,7 +3,7 @@ centerpiece).
 
 Replaces Ceres SPARSE_SCHUR / g2o BlockSolver<6,3>+CSparse with marginalized
 landmarks (reference: st20-g2o/src/include/test_ceres.h:143-145,
-test_g2o.h:94-135). TPU-native design:
+test_g2o.h:94-135). Accelerator-native design:
 
 - residuals + analytic Jacobians evaluated per observation via vmap
   (the block sparsity pattern st20 renders at sim_data.h:108-159 is never
@@ -11,7 +11,7 @@ test_g2o.h:94-135). TPU-native design:
 - `segment_sum` gathers J^T J into per-camera (6,6), per-landmark (3,3) blocks
 - landmark elimination = batched 3x3 Cholesky solves (closed form)
 - reduced camera system S assembled densely over (C*6, C*6) via einsum on a
-  scattered (C, L) block tensor — MXU work; small C makes this exact and fast.
+  scattered (C, L) block tensor — matmul work; small C makes this exact and fast.
   (C ~ hundreds is fine; the PCG/matrix-free path for large C is
   solvers/pcg.py.)
 - LM trust-region control runs on device in a while_loop (no host syncs)
@@ -194,9 +194,9 @@ def _schur_reduce(Hpp, Hll, gp, gl, W_obs, cam_idx, lm_idx, lam, n_cams, n_point
                   fixed_mask):
     """Form and solve the reduced camera system; back-substitute landmarks.
 
-    TPU shape: with Hll_d = Ld Ld^T (batched closed-form 3x3 Cholesky), the
+    Device shape: with Hll_d = Ld Ld^T (batched closed-form 3x3 Cholesky), the
     off-diagonal Schur mass W Hll_d^-1 W^T equals -B B^T for the whitened
-    block matrix B[c, l] = W[c,l] Ld[l]^-T — ONE (C*6, L*3)x(L*3, C*6) MXU
+    block matrix B[c, l] = W[c,l] Ld[l]^-T — ONE (C*6, L*3)x(L*3, C*6)
     matmul instead of the two-stage (C,L)-block einsum chain; rhs and
     back-substitution are matrix-free segment reductions over observations
     (nothing but B ever materializes the (C,L) block structure).
@@ -239,11 +239,9 @@ class TrackTable(NamedTuple):
     visibility structure): obs_idx[l, k] indexes the k-th observation of
     landmark l into the flat observation arrays; mask marks real entries.
 
-    Purpose: TPU scatters serialize (measured ~7-12 ms per 83k-obs scatter /
-    segment_sum on v5e) while gathers and matmuls run at speed-of-light. The
-    track table converts EVERY scatter in the BA iteration into gathers +
-    batched einsums — the TPU-native layout for the block sparsity st20
-    renders (sim_data.h:108-159)."""
+    Purpose: the track table converts EVERY scatter in the BA iteration
+    into gathers + batched einsums, a layout for the block sparsity st20
+    renders (sim_data.h:108-159) with no scatter or atomic accumulation."""
     obs_idx: jnp.ndarray   # (L, K) int32
     mask: jnp.ndarray      # (L, K) dtype 1/0
 
@@ -297,7 +295,7 @@ def _schur_reduce_tracks(Hpp, Hll, gp, gl, W_obs, cam_idx, lm_idx, lam,
                          n_cams, n_points, fixed_mask, table: TrackTable):
     """Scatter-free reduced-camera-system solve: the whitened block matrix B
     is assembled by track-padded one-hot einsum (gathers + batched matmuls
-    only), then S_off = -B^T B is one MXU matmul. Exact same math as
+    only), then S_off = -B^T B is one matmul. Exact same math as
     _schur_reduce."""
     from slam_tricks_tpu.ops.smallchol import cholesky_small, solve_lower_small
 
@@ -449,7 +447,7 @@ def solve_ba(poses0, points0, obs, *, fixed_mask=None, max_iters=30,
     exact Cholesky path with O(N) memory via within-track pair accumulation —
     pass `track_pairs=build_track_pairs(obs.cam_idx, obs.lm_idx)` (host-built
     once; the visibility structure is static); "tracks" is the scatter-free
-    fast path (gathers + batched matmuls only — TPU scatters serialize, see
+    fast path (gathers + batched matmuls only — no scatters, see
     TrackTable) — pass `track_table=build_track_table(obs.cam_idx, obs.lm_idx,
     obs.weight, n_points=L)`.
 

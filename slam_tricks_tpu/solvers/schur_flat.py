@@ -1,23 +1,18 @@
-"""Flat-layout Schur-complement BA — the speed-of-light single-chip path.
+"""Flat-layout Schur-complement BA — the single-device flat path.
 
 Mathematically IDENTICAL to solvers/schur.solve_ba (same damping, same gauge
-handling, same Nielsen gain-ratio control — parity-tested), re-laid-out for the
-TPU memory system. Round-1 on-chip profiling showed the block-shaped iteration
-spending ~35 ms at the 96-cam/83k-obs scale while doing < 100 MFLOP of real
-work: every per-observation array carried tiny trailing dims ((N,2,6),
-(N,6,6), (N,3,3), ...) which the TPU tiles to (8,128) registers — up to ~70x
-memory amplification on EVERY intermediate, so the iteration was bound by HBM
-traffic it didn't need.
+handling, same Nielsen gain-ratio control — parity-tested), re-laid-out so
+that no per-observation array carries tiny trailing dims ((N,2,6), (N,6,6),
+(N,3,3), ...), which device memory tiles pad many times over.
 
 Design rules here (the whole module follows them):
   1. Per-observation data is (N, k) with block dims FLATTENED (k = 2, 6, 12,
      18, 21, ...) and the small-matrix algebra unrolled into column arithmetic
-     (pure VPU elementwise ops, no padded (2,6)-shaped tiles).
-  2. No scatters anywhere (TPU scatters serialize; round-1 measured 7-12 ms
-     per 83k-row segment_sum). Per-camera reductions are ONE one-hot matmul
-     on the MXU (C is small); per-landmark reductions are track-table gathers
-     + masked sums (gathers run at memory speed).
-  3. The off-diagonal Schur mass is one (C*6, L*3) x (L*3, C*6) MXU matmul of
+     (plain elementwise ops, no (2,6)-shaped tiles).
+  2. No scatters anywhere. Per-camera reductions are ONE one-hot matmul (C
+     is small); per-landmark reductions are track-table gathers + masked
+     sums.
+  3. The off-diagonal Schur mass is one (C*6, L*3) x (L*3, C*6) matmul of
      the whitened track matrix B, built by a batched per-landmark one-hot
      contraction (gathers + dot_general only).
 
@@ -189,15 +184,14 @@ class FlatWork(NamedTuple):
 def build_flat_work(obs, n_cams, n_points, dtype=np.float32,
                     use_cam_table=None, grid=False):
     """Host-side: track table + per-slot camera index + the camera-side
-    reduction structure. Small C uses a dense (N, C) one-hot (ONE MXU matmul
+    reduction structure. Small C uses a dense (N, C) one-hot (ONE matmul
     per reduction); large C switches to a (C, Kc) camera gather table — the
     one-hot would be O(N*C) memory (6.5 GB at N=1.6M, C=1024).
     use_cam_table=None -> auto (C > 128).
 
     grid=True: `obs` must come from grid_order_obs — row l*K+k is slot k of
     landmark l, so the landmark-side reductions and the whitening become
-    reshapes instead of 100k-row gathers (round-3 finding: a TPU gather
-    costs ~10-20 ns PER ROW regardless of width)."""
+    reshapes instead of 100k-row gathers."""
     from slam_tricks_tpu.solvers.schur import build_track_table
 
     table = build_track_table(obs.cam_idx, obs.lm_idx, obs.weight,
@@ -266,7 +260,7 @@ def _iteration_quantities(poses, points, obs, work, n_cams, n_points,
     cols += [cost_col]
     cam_stack = jnp.stack(cols, axis=1)                           # (N, 28)
     if work.oh_c is not None:
-        # small C: ONE (C,N)x(N,28) MXU matmul
+        # small C: ONE (C,N)x(N,28) matmul
         cam_red = jax.lax.dot_general(work.oh_c, cam_stack,
                                       (((0,), (0,)), ((), ())),
                                       precision=HIGHEST)          # (C, 28)
@@ -303,13 +297,10 @@ def _iteration_quantities(poses, points, obs, work, n_cams, n_points,
 
 
 def _solve_flat(Hpp_flat, gp, Hll_flat, gl, W, lam, fixed_mask, work,
-                n_cams, n_points, chol_backend="xla", prior=None):
+                n_cams, n_points, prior=None):
     """Damped Schur solve from flat blocks. Returns (dp (C,6), dl (L,3),
-    diag terms for the gain ratio).
-
-    chol_backend: "xla" uses jax.scipy cho_factor/cho_solve; "pallas" uses the
-    fused single-kernel factor+substitute of ops/pallas_chol.py
-    ("pallas_interpret" for CPU testing).
+    diag terms for the gain ratio). The reduced camera system is factored
+    with jax.scipy cho_factor/cho_solve.
 
     prior: optional (H (P,P), g (P,)) Gaussian prior on the tangent of the
     FIRST P//6 cameras (the sliding-window marginalization prior,
@@ -398,14 +389,8 @@ def _solve_flat(Hpp_flat, gp, Hll_flat, gl, W, lam, fixed_mask, work,
         P = Hp.shape[0]
         S = S.reshape(C * 6, C * 6).at[:P, :P].add(Hp).reshape(C, 6, C, 6)
         b = b.reshape(-1).at[:P].add(-gpr).reshape(C, 6)
-    if chol_backend.startswith("pallas"):
-        from slam_tricks_tpu.ops.pallas_chol import chol_solve
-        dp = chol_solve(S.reshape(C * 6, C * 6), b.reshape(C * 6),
-                        interpret=chol_backend.endswith("interpret"))
-        dp = dp.reshape(C, 6)
-    else:
-        cf = jax.scipy.linalg.cho_factor(S.reshape(C * 6, C * 6), lower=True)
-        dp = jax.scipy.linalg.cho_solve(cf, b.reshape(C * 6)).reshape(C, 6)
+    cf = jax.scipy.linalg.cho_factor(S.reshape(C * 6, C * 6), lower=True)
+    dp = jax.scipy.linalg.cho_solve(cf, b.reshape(C * 6)).reshape(C, 6)
 
     # back-substitution: dl = Hll^-1 (-gl - W^T dp) via track gathers
     dp_t = dp[work.cam_of_track]                                   # (L,K,6)
@@ -421,17 +406,11 @@ def _solve_flat(Hpp_flat, gp, Hll_flat, gl, W, lam, fixed_mask, work,
 
 def solve_ba_flat(poses0, points0, obs, work: FlatWork, *, fixed_mask=None,
                   max_iters=30, lambda_init=1e-4, xtol=1e-12,
-                  pallas_meta=None, pallas_interpret=False,
                   linear="dense", pcg_work=None, cg_iters=100, cg_tol=1e-6,
-                  chol_backend="xla", loss=None, psum_axis=None):
+                  loss=None, psum_axis=None):
     """LM bundle adjustment, flat layout. Same semantics/trajectory as
     schur.solve_ba(linear_solver='dense') — parity-tested. `work` comes from
     build_flat_work(obs, C, L) (host-built once; visibility is static).
-
-    pallas_meta: pass the meta dict from ops.pallas_ba.build_pallas_ba_args
-    (with `obs` being the SORTED observations it returns) to linearize +
-    assemble in the fused one-HBM-pass Pallas kernel instead of the XLA flat
-    path; the Schur reduction and LM control are unchanged.
 
     linear: "dense" materializes + Cholesky-factors the reduced camera system
     (exact; C up to ~hundreds); "pcg" runs the scatter-free block-tridiagonal
@@ -439,8 +418,7 @@ def solve_ba_flat(poses0, points0, obs, work: FlatWork, *, fixed_mask=None,
     pcg_work=pcg_flat.build_pcg_work(obs, C).
 
     loss: optional residuals.robust.Loss — robustified BA via IRLS, same
-    semantics as schur.solve_ba(loss=...) (parity-tested). Not supported on
-    the pallas_meta linearization path.
+    semantics as schur.solve_ba(loss=...) (parity-tested).
 
     psum_axis: run this EXACT solver inside shard_map as the distributed
     large-C path (parallel/pcg_dist.py): `obs`/`work`/`pcg_work`/`points0`
@@ -454,25 +432,13 @@ def solve_ba_flat(poses0, points0, obs, work: FlatWork, *, fixed_mask=None,
     C, L = n_cams, n_points
     if fixed_mask is None:
         fixed_mask = jnp.zeros(C, bool).at[0].set(True)
-    if loss is not None and pallas_meta is not None:
-        raise ValueError("loss= is not supported with pallas_meta "
-                         "(the fused kernel computes the unrobustified cost)")
-    if psum_axis is not None and (linear != "pcg" or pallas_meta is not None):
-        raise ValueError("psum_axis requires linear='pcg' without pallas_meta")
+    if psum_axis is not None and linear != "pcg":
+        raise ValueError("psum_axis requires linear='pcg'")
 
     def quantities(poses, points):
         """(Hpp_flat, gp, Hll_flat tuple, gl, W, cost) at the given point."""
-        if pallas_meta is not None:
-            from slam_tricks_tpu.ops import pallas_ba
-            Hpp_flat, gp, cost, Hll_flat, gl, W = pallas_ba.linearize_assemble(
-                poses.R.reshape(C, 9), poses.t, points, obs,
-                pallas_meta["bases"], n_cams=C, n_points=L,
-                tile=pallas_meta["tile"], w_win=pallas_meta["w_win"],
-                L_pad=pallas_meta["L_pad"], interpret=pallas_interpret)
-        else:
-            Hpp_flat, gp, Hll_flat, gl, W, cost = _iteration_quantities(
-                poses, points, obs, work, C, L, loss=loss,
-                psum_axis=psum_axis)
+        Hpp_flat, gp, Hll_flat, gl, W, cost = _iteration_quantities(
+            poses, points, obs, work, C, L, loss=loss, psum_axis=psum_axis)
         return (Hpp_flat, gp, tuple(Hll_flat), gl, W), cost
 
     def lin_solve(blocks, lam):
@@ -484,7 +450,7 @@ def solve_ba_flat(poses0, points0, obs, work: FlatWork, *, fixed_mask=None,
                 fixed_mask, work, pcg_work, C, L, cg_iters=cg_iters,
                 cg_tol=cg_tol, psum_axis=psum_axis)
         return _solve_flat(Hpp_flat, gp, list(Hll_flat), gl, W, lam,
-                           fixed_mask, work, C, L, chol_backend=chol_backend)
+                           fixed_mask, work, C, L)
 
     # the state carries the CURRENT point's blocks: each iteration linearizes
     # once (at the trial point — the evaluation doubles as the trial-cost

@@ -4,6 +4,7 @@ st17-ceres/src/include/solver.hpp:253-288) adapted to JAX's async dispatch:
 every stop() calls block_until_ready on tracked outputs so timings are real.
 """
 
+import statistics
 import time
 from contextlib import contextmanager
 
@@ -66,14 +67,16 @@ def annotate(name):
     return jax.profiler.TraceAnnotation(name)
 
 
-def time_fn(fn, *args, warmup=1, reps=5):
-    """Compile-then-time a jitted callable; returns (best_seconds, result)."""
+def time_median(fn, *args, warmup=1, reps=5):
+    """Median wall time of `reps` calls that each end in block_until_ready,
+    after `warmup` untimed calls (which absorb compilation). Returns
+    (median_seconds, per-call seconds, last result)."""
     result = None
-    for _ in range(max(warmup, 1)):
+    for _ in range(warmup):
         result = jax.block_until_ready(fn(*args))
-    best = float("inf")
+    times = []
     for _ in range(reps):
         t0 = time.perf_counter()
         result = jax.block_until_ready(fn(*args))
-        best = min(best, time.perf_counter() - t0)
-    return best, result
+        times.append(time.perf_counter() - t0)
+    return statistics.median(times), times, result

@@ -186,3 +186,58 @@ def test_landmark_covariances_match_dense():
     np.testing.assert_allclose(np.asarray(band_lc)[observed],
                                np.asarray(dense_lc)[observed],
                                atol=1e-7 * ls, rtol=1e-4)
+
+
+def _tridiag_system(G, m, seed=0, dtype=np.float64):
+    rng = np.random.default_rng(seed)
+    Gm = rng.normal(size=(G, m, m + 4))
+    D = (Gm @ Gm.transpose(0, 2, 1) + (m / 2) * np.eye(m)[None]).astype(dtype)
+    E = (0.3 * rng.normal(size=(G - 1, m, m))).astype(dtype)
+    r = rng.normal(size=(G, m)).astype(dtype)
+    return D, E, r
+
+
+def _tridiag_dense_solve(D, E, r):
+    G, m, _ = D.shape
+    M = np.zeros((G, m, G, m))
+    for g in range(G):
+        M[g, :, g, :] = D[g]
+    for g in range(G - 1):
+        M[g + 1, :, g, :] = E[g]
+        M[g, :, g + 1, :] = E[g].T
+    return np.linalg.solve(M.reshape(G * m, G * m),
+                           np.asarray(r, np.float64).reshape(-1)
+                           ).reshape(G, m)
+
+
+def test_cyclic_reduction_matches_dense():
+    from slam_tricks_tpu.solvers.banded_flat import block_tridiag_solve_cr
+
+    for G, m in ((1, 8), (2, 8), (7, 16), (12, 16), (13, 16)):
+        D, E, r = _tridiag_system(G, m, seed=G)
+        if G == 1:
+            E = E.reshape(0, m, m)
+        ref = _tridiag_dense_solve(D, E, r)
+        x = block_tridiag_solve_cr(jnp.asarray(D), jnp.asarray(E),
+                                   jnp.asarray(r))
+        np.testing.assert_allclose(np.asarray(x), ref, atol=1e-9,
+                                   err_msg=f"G={G}")
+
+
+@pytest.mark.parametrize("method", ["cr", "scan"])
+def test_block_tridiag_methods_match_dense_f64(method):
+    D, E, r = _tridiag_system(12, 16)
+    ref = _tridiag_dense_solve(D, E, r)
+    x = banded_flat.block_tridiag_solve(jnp.asarray(D), jnp.asarray(E),
+                                        jnp.asarray(r), method=method)
+    np.testing.assert_allclose(np.asarray(x), ref, atol=1e-10)
+
+
+def test_cyclic_reduction_f32_bench_block_width():
+    """f32 at the banded solver's production block width m = 6*8 = 48."""
+    D, E, r = _tridiag_system(16, 48, seed=3, dtype=np.float32)
+    ref = _tridiag_dense_solve(D, E, r)
+    x = banded_flat.block_tridiag_solve_cr(jnp.asarray(D), jnp.asarray(E),
+                                           jnp.asarray(r))
+    scale = np.abs(ref).max()
+    assert np.max(np.abs(np.asarray(x, np.float64) - ref)) < 1e-4 * scale

@@ -1,7 +1,7 @@
 """Production-dtype (f32) correctness suite — VERDICT r1 item 6.
 
 tests/conftest.py enables x64 globally for verification parity with the
-reference's Eigen/Ceres doubles, but production on TPU runs f32 with
+reference's Eigen/Ceres doubles, but production on the accelerator runs f32 with
 HIGHEST-precision contractions. These tests pin the f32 story: every case
 constructs f32 inputs explicitly, asserts the outputs STAY f32, and documents
 the achievable tolerance. If someone drops the HIGHEST-precision pins in the

@@ -168,7 +168,7 @@ def test_robust_loss_parity():
 
 
 def test_f32_convergence():
-    """f32 (the TPU production dtype) reaches the noise floor on a
+    """f32 (the production dtype) reaches the noise floor on a
     loop-closure scene."""
     dtype = np.float32
     scene, poses0, points0, fixed = _problem(n_cams=64, n_points=1500,

@@ -112,3 +112,22 @@ def test_native_schur_converges_to_stationary_point():
     gp[np.asarray(fixed)] = 0.0
     assert np.abs(gp).max() < 1e-6
     assert np.abs(gl).max() < 1e-6
+
+
+def test_library_is_stale_when_missing_or_older_than_a_source(tmp_path,
+                                                              monkeypatch):
+    import os
+
+    from slam_tricks_tpu import native
+
+    for f in native._SOURCES:
+        (tmp_path / f).write_text("")
+    lib = tmp_path / "libslam_native.so"
+    monkeypatch.setattr(native, "_NATIVE_DIR", str(tmp_path))
+    monkeypatch.setattr(native, "_LIB_PATH", str(lib))
+    assert native._stale()                       # missing
+    lib.write_text("")
+    os.utime(lib, (2e9, 2e9))
+    assert not native._stale()                   # newer than every source
+    os.utime(tmp_path / "Makefile", (2e9 + 1, 2e9 + 1))
+    assert native._stale()                       # build flags changed

@@ -172,7 +172,7 @@ def test_vi_smoother_recovers_states_and_bias():
 
 
 def test_vi_smoother_f32():
-    """The whole pipeline must run in f32 (the TPU-native dtype)."""
+    """The whole pipeline must run in f32 (the production dtype)."""
     sim = _sim(n_keyframes=8, samples_per_seg=20, sigma_g=2e-4, sigma_a=2e-3,
                obs_rot_noise=0.01, obs_trans_noise=0.02, seed=5,
                dtype=jnp.float32)
